@@ -3,7 +3,7 @@ round-2/3/4 feature surface (insert chain, varispeed AIFF, normalization,
 streaming, minphase, FLAC in/out).
 
 Generates a small synthetic library, then exercises each configuration
-through the public CLI/API. Run on any backend (TPU when attached):
+through the public CLI/API. Run on any backend (the GPU when attached):
 
     python examples/demo.py [workdir]
 """
@@ -119,7 +119,7 @@ def run(workdir: str) -> None:
     print("[7] outboard rack: EQ -> compressor -> saturator -> width")
 
     # --- config 8: varispeed — NTSC pull-down 44.1k -> 44.056k via the
-    # banded MXU path (dense matrix would be ~0.5 GB), AIFF out ---
+    # banded path (dense matrix would be ~0.5 GB), AIFF out ---
     rc = main(["process", f"{lib}/hit.wav", "--out", f"{workdir}/c8",
                  "--rate", "44056", "--quality", "high",
                  "--format", "aiff", "--seed", "1"])

@@ -1,5 +1,5 @@
 """Command-line interface — the L6 layer (the reference's SwiftUI/JUCE GUI,
-SURVEY.md section 1, re-expressed as a CLI for a headless TPU pipeline).
+SURVEY.md section 1, re-expressed as a CLI for a headless device pipeline).
 
 Subcommands mirror the app's user actions:
   process   "Process All" batch run  (MainViewModel.processAllFiles)
@@ -782,7 +782,7 @@ def cmd_verify(args) -> int:
 
 
 def cmd_devices(args) -> int:
-    """Device enumeration — the TPU analog of the reference's device scan
+    """Device enumeration — the accelerator analog of the reference's device scan
     (Source/MainComponent.cpp:338-376; Services/AudioService.swift:26-52)."""
     import jax
 
@@ -889,7 +889,7 @@ def main(argv: list[str] | None = None) -> int:
         allow_abbrev=False,   # the --config pre-scan and --chain-eq merge
         # suppression match literal flag spellings; a silently-accepted
         # abbreviation (--conf) would bypass them
-        description="TPU-native batch audio resampler "
+        description="Accelerator-native batch audio resampler "
                     "(capabilities of F9 JUCE Batch Resampler Studio)",
     )
     from .version import __version__
@@ -953,8 +953,9 @@ def main(argv: list[str] | None = None) -> int:
         p.add_argument("--batch-size", type=int, default=8)
         p.add_argument("--device-layout", default="packed",
                        choices=["packed", "rows"],
-                       help="packed: fewest link bytes (remote TPU); rows: "
-                            "least device time (local TPU)")
+                       help="packed: fewest host<->device bytes; rows: "
+                            "fewest device-side relayouts (trade-off not "
+                            "yet re-measured on the GPU)")
         p.add_argument("--routing", default=None,
                        help="MCFX channel routing map, e.g. '0,1,-1,2' "
                             "(out[i] <- in[map[i]], -1 = silence)")

@@ -1,9 +1,9 @@
-"""Processing configuration — the TPU-native ``ProcessingSettings``.
+"""Processing configuration — the device pipeline's ``ProcessingSettings``.
 
 Mirrors the reference's single plain-struct settings object
 (Source/AppState.h:183-259; Models/ProcessingSettings.swift:23-89; field
 inventory at _Swift Docs/TECHNICAL_DOCUMENTATION.md:139-154) plus the
-batch/device knobs the TPU pipeline adds.  Same invalidation semantics for
+batch/device knobs the device pipeline adds.  Same invalidation semantics for
 cached calibration: changing the rate pair or quality invalidates a measured
 latency (Models/ProcessingSettings.swift:60-65;
 Source/SettingsComponent.cpp:321-327).
@@ -120,7 +120,7 @@ class ProcessingConfig:
     channel_routing: Sequence[int] | None = None   # out[i] <- in[routing[i]]
     output_channels: int | None = None             # fan mono out to N
 
-    # --- TPU batch execution ---
+    # --- device batch execution ---
     batch_size: int = 8                 # files per compiled device step
     bucket_frames: Sequence[int] = (
         1 << 16, 1 << 18, 1 << 20, 1 << 22, 60 * 192000
@@ -128,19 +128,18 @@ class ProcessingConfig:
     native_loader: bool = False
     """Opt-in: decode integer-PCM WAVs with the C++ thread-pool loader
     (``f9tpu.native.AsyncLoader``) instead of Python decode threads.
-    Measured SLOWER than the default (0.5-0.6x, docs/PERF.md 'decode stage'):
+    Measured slower than the default on a one-core host:
     the Python path already runs the same native 24-bit unpack loop and
     releases the GIL during file I/O, while the loader adds ticket polling
     and an extra buffer copy.  Kept as a knob for GIL-free end-to-end decode
     experiments."""
     device_layout: str = "packed"
-    """Result layout trade-off (docs/PERF.md):
+    """Result layout trade-off:
     - "packed": flat layout + on-device 24-bit byte packing — minimum bytes
-      over the host<->device link (best when the link is slow, e.g. remote
-      TPU tunnels; 25% fewer bytes than int32).
-    - "rows": the SRC's native (n_rows, L) tiling end-to-end on device —
-      ~3x less device time (skips a pathological flat-reshape relayout);
-      best for locally attached TPUs where PCIe dwarfs the graph time.
+      over the host<->device link (25% fewer bytes than int32).
+    - "rows": the SRC's native (n_rows, L) tiling end-to-end on device — no
+      device-side flat reshape of the SRC output.
+    Which one serves the GPU better is not yet measured (ROADMAP.md).
     """
 
     def validate(self) -> None:

@@ -1,11 +1,11 @@
 """Polyphase filter-bank design for rational sample-rate conversion.
 
-This is the TPU-native replacement for the DSP the reference app delegates to
+This is the on-device replacement for the DSP the reference app delegates to
 JUCE's ``WindowedSincInterpolator`` / ``LagrangeInterpolator``
 (linked by ``F9_JUCE_Batch_Resampler.jucer`` module list; named as the numerical
 oracle by ``BASELINE.json``).  All design math is float64 NumPy, done once on the
 host; the resulting bank is baked into a dense ``(W, L)`` "cycle matrix" ``G`` so
-that the inner loop on TPU is a single strided matmul (MXU-friendly):
+that the inner loop on the device is a single strided matmul:
 
     y[q*L + p] = sum_w  G[w, p] * x_padded[q*M + w]
 
@@ -261,7 +261,7 @@ DENSE_MAX_ELEMS = 4 << 20
 @dataclasses.dataclass(frozen=True, eq=False)  # eq=False: identity hash (instances
 # are interned by design_cycle_bank's cache, and ndarray fields aren't hashable)
 class CycleBank:
-    """A fully-resolved rational resampler: everything the TPU op needs.
+    """A fully-resolved rational resampler: everything the device op needs.
 
     One "cycle" is ``L`` consecutive output samples produced from an ``M``-sample
     advance of the input.  ``G`` is dense ``(W, L)`` with
@@ -269,7 +269,7 @@ class CycleBank:
     ``x_padded = [zeros(pad_front), x, zeros(...)]``.  For varispeed ratios
     whose dense matrix would exceed `DENSE_MAX_ELEMS`, ``G`` is ``None`` and
     execution uses the phase bank ``H`` directly — production dispatch is
-    the banded MXU path (`resample_banded` / `resample_banded_rows_pre`);
+    the banded path (`resample_banded` / `resample_banded_rows_pre`);
     the gather path survives only as the slow cross-check.
     """
 

@@ -1,10 +1,10 @@
 """Float64 NumPy oracle for the rational resampler.
 
 Independent, direct-form evaluation from the prototype phase bank (NOT via the
-``(W, L)`` cycle matrix used by the TPU ops), so parity tests cross-check both
+``(W, L)`` cycle matrix used by the device ops), so parity tests cross-check both
 the cycle-matrix construction and the device execution path.  This plays the
 role ``BASELINE.json`` assigns to JUCE's ``WindowedSincInterpolator`` /
-``LagrangeInterpolator`` running on CPU: the accuracy reference the TPU output
+``LagrangeInterpolator`` running on CPU: the accuracy reference the device output
 must match to <= -120 dB RMS.  A C++ double-precision twin lives in
 ``f9tpu/native/f9native.cpp`` (``oracle_resample``, built lazily via ctypes —
 see ``f9tpu/native/__init__.py``) for native cross-validation.

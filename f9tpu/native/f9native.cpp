@@ -4,7 +4,7 @@
 //
 //  1. A double-precision polyphase resampler ("oracle"): the role JUCE's
 //     WindowedSincInterpolator / LagrangeInterpolator play for BASELINE.json —
-//     the CPU accuracy reference the TPU output is tested against.  The phase
+//     the CPU accuracy reference the device output is tested against.  The phase
 //     bank is designed in Python (float64) and passed in, so this checks the
 //     *execution* path (indexing, accumulation) independently of the design.
 //

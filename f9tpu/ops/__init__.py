@@ -2,14 +2,11 @@ from .resample import (  # noqa: F401
     banded_rows_plan,
     marshal_banded_rows,
     resample,
+    resample_auto,
     resample_banded,
     resample_banded_rows_pre,
     resample_gather,
     resample_rates,
-)
-from .pallas_src import (  # noqa: F401
-    resample_auto,
-    resample_pallas,
     resample_rows,
     resample_rows_pre,
     rows_marshal_plan,

@@ -1,6 +1,6 @@
 """Analysis reductions: RMS, peak, noise floor, peak position, DC removal.
 
-TPU-native equivalents of the reference's helper DSP:
+On-device equivalents of the reference's helper DSP:
 - ``calculateRMS`` / ``calculateNoiseFloorDb`` (Source/MainComponent.cpp:950-1004,
   Services/LatencyMeasurementService.swift:173-181)
 - ``findPeakPosition`` (Source/MainComponent.cpp:950-...; Swift

@@ -2,7 +2,7 @@
 
 The reference writes 24-bit PCM WAVs straight from float32 buffers via JUCE /
 AVFoundation (Source/MainComponent.cpp:784-801;
-Services/AudioProcessingService.swift:303-311).  The TPU-native pipeline adds
+Services/AudioProcessingService.swift:303-311).  The device pipeline adds
 the mastering-correct step the north star asks for (BASELINE.json): TPDF
 (triangular) dither of +-1 LSB before quantization, computed on device so the
 host only packs bytes.
@@ -30,9 +30,8 @@ def _scale(bits: int) -> float:
 def _splitmix32(h: jax.Array) -> jax.Array:
     """SplitMix32 finalizer: a full-avalanche 32-bit mix (2 multiplies,
     3 shift-xors).  As a counter hash it is a statistically white generator —
-    exactly what audio dither needs — at ~1/10 the VPU cost of threefry
-    (measured: threefry dither was ~40% of the whole fused graph,
-    docs/PERF.md round 2)."""
+    exactly what audio dither needs — at a fraction of the cost of
+    threefry."""
     h = h ^ (h >> jnp.uint32(16))
     h = h * jnp.uint32(0x21F0AAAD)
     h = h ^ (h >> jnp.uint32(15))
@@ -54,7 +53,7 @@ def tpdf_noise(seeds: jax.Array, pos: jax.Array) -> jax.Array:
     Noise = (u1 - u2) with u1,u2 the two 16-bit halves of one hashed draw:
     triangular PDF over (-1, 1) LSB, variance 1/6 LSB^2.  The halves of one
     SplitMix32 output are only *approximately* independent; measured over
-    2^22 draws (docs/PERF.md round 3) the deviation is below the estimator's
+    2^22 draws the deviation is below the estimator's
     own noise floor — corr(u1,u2) = 2.8e-4, variance 0.16660 vs 1/6,
     |autocorr lag 1..4| < 8e-4, spectral ripple identical to a NumPy
     two-independent-draw reference — so the single-draw form is kept at half

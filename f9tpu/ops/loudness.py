@@ -1,4 +1,4 @@
-"""EBU R128 / ITU-R BS.1770-4 metering, TPU-native: integrated loudness
+"""EBU R128 / ITU-R BS.1770-4 metering on device: integrated loudness
 (LUFS), loudness range (LRA), and true peak (dBTP).
 
 The reference surfaces per-file levels (peak dB readouts in the file list,
@@ -12,8 +12,8 @@ Pipeline (all on device, no recurrences):
    set; resampling first sidesteps re-deriving them per rate).
 2. K-weighting = the standard's two biquads (high shelf + high-pass),
    realised as one truncated float64 impulse response driven through the
-   same MXU FIR machinery as `ops.chain.Biquad` (a per-sample IIR would
-   serialise the TPU; the cascade's poles give geometric decay, truncated
+   same FIR machinery as `ops.chain.Biquad` (a per-sample IIR would
+   serialise the device; the cascade's poles give geometric decay, truncated
    far below the gating resolution).
 3. ONE pass of 100 ms hop energies feeds BOTH statistics: integrated
    loudness uses 400 ms / 75 %-overlap blocks (4 consecutive hops) with
@@ -89,10 +89,9 @@ def k_weighting_ir() -> np.ndarray:
 def k_weight(x: jax.Array) -> jax.Array:
     """Apply the 48 kHz K-weighting cascade along the last axis.
 
-    The ~5k-tap IR makes the direct MXU form cost ~1 GFLOP/second of audio
-    (measured ~2 s for a 30 s stereo file); above a short-signal threshold
-    the partitioned-FFT convolver is ~20x cheaper, so metering stays a
-    negligible add-on to normalization runs."""
+    The ~5k-tap IR makes the direct form cost ~1 GFLOP per second of audio;
+    above a short-signal threshold the partitioned-FFT convolver does the
+    same work in far fewer operations."""
     from .chain import _direct_convolve, fft_convolve
 
     h = k_weighting_ir().astype(np.float32)

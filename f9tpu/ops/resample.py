@@ -1,4 +1,4 @@
-"""Rational sample-rate conversion as a single strided matmul on TPU.
+"""Rational sample-rate conversion as one dense matmul per output cycle.
 
 The reference app's "resampling" is an analog hardware loop driven by a
 real-time callback (reference: Services/AudioProcessingService.swift:339-536);
@@ -9,9 +9,10 @@ so the per-sample inner loops of a CPU interpolator become
 
     y[b, q*L : (q+1)*L] = x_padded[b, q*M : q*M + W] @ G
 
-which XLA lowers to an MXU-tiled strided convolution.  Layout is
+evaluated either as a strided convolution or, for the common banks, as a
+plain GEMM over cycle rows (`resample_rows_pre`).  Layout is
 ``(batch*channels, frames)`` — the reference's per-channel loops
-(CAAudioBridge.swift:555-624) become the conv batch dimension.
+(CAAudioBridge.swift:555-624) become the batch dimension.
 
 No data-dependent shapes: output length is a static function of input length,
 so each (in_len, ratio, quality) triple compiles once and is cached by jit.
@@ -27,9 +28,11 @@ import numpy as np
 
 from ..models.filters import CycleBank, design_cycle_bank
 
-__all__ = ["resample", "resample_banded", "resample_gather",
-           "resample_rates", "cycle_matrix_f32", "banded_rows_applicable",
-           "banded_rows_plan", "resample_banded_rows_pre"]
+__all__ = ["resample", "resample_auto", "resample_banded", "resample_gather",
+           "resample_rates", "resample_rows", "resample_rows_pre",
+           "rows_marshal_plan", "rows_pre_applicable", "stacked_bank_f32",
+           "cycle_matrix_f32", "banded_rows_applicable", "banded_rows_plan",
+           "resample_banded_rows_pre"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -97,11 +100,9 @@ def _gather_core(xp: jax.Array, bank: CycleBank, n_out: int) -> jax.Array:
     exact int32: requires L*M + L < 2^31 (guaranteed by resolve_ratio's
     max_denominator of 2^16).
 
-    TPU note: this is a VPU gather path (no MXU) — K fused gather+FMA
-    passes over the output.  TPU per-element gathers are effectively serial:
-    measured 15x realtime at quality=high (K=130) vs the banded MXU form's
-    ~49,000x (docs/PERF.md), which is why `_banded_core` is the production
-    dispatch and this form exists as the independent numerical cross-check.
+    This is K fused gather+FMA passes over the output with no matmul;
+    `_banded_core` is the production dispatch and this form exists as the
+    independent numerical cross-check.
     """
     L, M, K = bank.L, bank.M, bank.taps_per_phase
     if L * M + L >= 2**31:
@@ -135,20 +136,20 @@ def resample_gather(x: jax.Array, bank: CycleBank,
     """Drop-in equivalent of `resample` via the phase-table gather path.
 
     Kept as the independent cross-check of the varispeed index contract;
-    production varispeed dispatch uses `resample_banded` (TPU per-element
-    gathers measured ~3000x slower than the banded matmul form: 15x vs
-    49,000x realtime on the NTSC pull-down — docs/PERF.md)."""
+    production varispeed dispatch uses `resample_banded`."""
     out_len, xp = _pad_for_cycles(x, bank, out_len)
     if xp is None:
         return jnp.zeros((*x.shape[:-1], out_len), dtype=x.dtype)
     return _gather_core(xp, bank, out_len)
 
 
-#: Outputs per banded segment (one MXU lane tile).
+#: Outputs per banded segment.  Not yet re-measured on the GPU
+#: (ROADMAP.md).
 _BAND_SEG = 128
-#: HBM lane-tile granularity: segment input offsets are aligned DOWN to this
-#: (the sub-tile shift is folded into zero rows at the top of the segment's
-#: matrix), so every window slice starts on a lane-tile boundary.
+#: Segment input offsets are aligned DOWN to this granularity (the sub-tile
+#: shift is folded into zero rows at the top of the segment's matrix).  The
+#: flat and rows banded forms share the alignment, which is what makes them
+#: bitwise identical.
 _LANE = 128
 
 
@@ -160,19 +161,17 @@ def _banded_plan(bank: CycleBank):
     p..p+127 of a cycle read only inputs [off(p), off(p+127)+K) — a window of
     w ~ 128*M/L + K samples.  Splitting each cycle into S overlapping
     128-output segments gives S small dense (w, 128) matrices (total
-    S*w*128 floats ~ 10-15 MB even for L ~ 11k) evaluated as one batched MXU
+    S*w*128 floats ~ 10-15 MB even for L ~ 11k) evaluated as one batched
     einsum over statically-sliced input windows — no gathers, no 0.5 GB
-    dense matrix.  This is PERF.md 'Headroom' item 3 made real, and the
-    production path for varispeed ratios.
+    dense matrix.  This is the production path for varispeed ratios.
 
-    Window offsets are LANE-ALIGNED: each segment's start is rounded down to
-    a 128-lane boundary and the sub-tile shift becomes zero rows at the top
+    Window offsets are ALIGNED: each segment's start is rounded down to a
+    multiple of ``_LANE`` and the sub-tile shift becomes zero rows at the top
     of its matrix (w widens by up to 127; in practice the staircase drift is
-    a few lanes).  Aligned starts make every window slice a tile-boundary
-    copy, and — because the flat path (`_banded_core`) and the marshalled
-    rows path (`resample_banded_rows_pre`) then contract the *identical*
-    (w,) windows against the *identical* matrices in the same order — the
-    two paths produce bitwise-identical floats.
+    a few samples).  Because the flat path (`_banded_core`) and the
+    marshalled rows path (`resample_banded_rows_pre`) then contract the
+    *identical* (w,) windows against the *identical* matrices in the same
+    order, the two paths produce bitwise-identical floats.
     """
     from ..models.filters import _cycle_tables
 
@@ -200,7 +199,7 @@ def _banded_plan(bank: CycleBank):
 
 
 def _banded_eval_rows(rows: jax.Array, bank: CycleBank) -> jax.Array:
-    """Segment windows + batched MXU einsum + head/tail reassembly on cycle
+    """Segment windows + batched einsum + head/tail reassembly on cycle
     rows ``(..., Q, w_rows)`` -> ``(..., Q, L)``.  The ONE evaluation both
     banded entry points trace, so the flat and marshalled-rows forms are
     bitwise-identical by construction."""
@@ -209,11 +208,9 @@ def _banded_eval_rows(rows: jax.Array, bank: CycleBank) -> jax.Array:
     S = len(in0)
     if rows.shape[-1] != w_rows:
         raise ValueError(f"cycle-row width {rows.shape[-1]} != plan {w_rows}")
-    # One dot PER SEGMENT, each consuming a lane-aligned slice of ``rows``
-    # directly: stacking the windows into a (Q, S, w) tensor first (the
-    # round-3 form) materialises ~3x the band bytes and costs a write+read
-    # HBM pass — measured 2253 -> 893 MB bytes-accessed and 3.5 -> 2.1 ms
-    # on the NTSC bench shape (docs/PERF.md round 3c).  Slices fuse into the
+    # One dot PER SEGMENT, each consuming an aligned slice of ``rows``
+    # directly: stacking the windows into a (Q, S, w) tensor first
+    # materialises ~3x the band bytes.  Slices fuse into the
     # dots; the only materialised intermediates are the outputs themselves.
     gs = jnp.asarray(G)                                      # (S, w, seg)
     ys = [jnp.einsum("...qw,wl->...ql", rows[..., a: a + w], gs[s],
@@ -258,9 +255,7 @@ def banded_rows_plan(bank: CycleBank, frames: int) -> tuple[int, int, int]:
     ``padded[q*M : q*M + row_width]`` of the zero-padded signal (zeros
     outside ``[pad_front, pad_front + frames)``), e.g. via a strided
     window view of a flat staging buffer.  Feeding the result to
-    `resample_banded_rows_pre` skips the device-side cycle retiling that
-    costs ~4x the whole resampler (docs/PERF.md round 3: 15.0 -> 3.2 ms on
-    the NTSC pull-down bench shape)."""
+    `resample_banded_rows_pre` skips the device-side cycle retiling."""
     _in0, _w, _seg, w_rows, _G = _banded_plan(bank)
     n_out = bank.out_len(frames)
     return -(-n_out // bank.L), w_rows, bank.pad_front
@@ -288,15 +283,14 @@ def resample_banded_rows_pre(xrows: jax.Array, bank: CycleBank) -> jax.Array:
     -> ``(..., Q, L)`` cycle rows (logical output sample ``t`` lives at
     ``[..., t // L, t % L]``; the host flatten after D2H is free).  The
     varispeed twin of `resample_rows_pre`: bitwise-identical floats to
-    `resample_banded` (shared `_banded_eval_rows`), ~4.7x faster than the
-    device-resident flat form at bench scale because the misaligned
-    flat->cycle-rows retiling happens on the host as strided memcpys."""
+    `resample_banded` (shared `_banded_eval_rows`); the flat->cycle-rows
+    retiling happens on the host as strided memcpys."""
     return _banded_eval_rows(xrows, bank)
 
 
 def resample_banded(x: jax.Array, bank: CycleBank,
                     out_len: int | None = None) -> jax.Array:
-    """MXU-banded resampler — the production path for varispeed banks
+    """Banded resampler — the production path for varispeed banks
     (``bank.G is None``); numerically the same design/contract as `resample`."""
     out_len, xp = _pad_for_cycles(x, bank, out_len)
     if xp is None:
@@ -316,7 +310,7 @@ def resample_presliced(xp: jax.Array, bank: CycleBank, num_cycles: int) -> jax.A
     need = (num_cycles - 1) * M + W
     if xp.shape[-1] < need:
         raise ValueError(f"padded input too short: {xp.shape[-1]} < {need}")
-    if bank.G is None:      # varispeed bank: banded MXU path
+    if bank.G is None:      # varispeed bank: banded path
         return _banded_core(xp, bank, num_cycles * L)
     lead = xp.shape[:-1]
     xb = xp.reshape(-1, 1, xp.shape[-1])
@@ -343,7 +337,7 @@ def resample(x: jax.Array, bank: CycleBank, out_len: int | None = None) -> jax.A
     compensation is folded into the cycle matrix, mirroring the reference's
     latency-compensation contract, _Swift Docs/LATENCY_TRIMMING_FIX.md).
     """
-    if bank.G is None:      # varispeed bank: banded MXU path
+    if bank.G is None:      # varispeed bank: banded path
         return resample_banded(x, bank, out_len=out_len)
     L, M, W = bank.L, bank.M, bank.W
     T = x.shape[-1]
@@ -366,13 +360,132 @@ def resample(x: jax.Array, bank: CycleBank, out_len: int | None = None) -> jax.A
         padding=((pad_front, pad_back),),
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=jnp.float32,
-        # TPU fp32 convs default to single-pass bf16 on the MXU (~-50 dB error);
-        # HIGHEST uses enough passes for true fp32 — required for the -120 dB
-        # parity target (BASELINE.md) and still far from the bottleneck here.
+        # HIGHEST = true fp32 (no TF32/bf16 passes): required for the
+        # -120 dB parity target (BASELINE.md)
         precision=jax.lax.Precision.HIGHEST,
     )                                                # (B, L, Q)
     y = jnp.transpose(y, (0, 2, 1)).reshape(-1, Q * L)[:, :out_len]
     return y.reshape(*lead, out_len)
+
+
+#: Most overlap rows (R) the rows form takes; beyond it the strided conv
+#: serves.  Not yet re-measured on the GPU (ROADMAP.md).
+_MAX_R = 8
+#: Row-count granule of the rows GEMM: marshalled row counts are rounded up
+#: to it, and `resample_rows_pre` pads any other count.  Rows in a partial
+#: last block take another code path in XLA:CPU's GEMM that rounds
+#: differently, and batch groupings and sharding must not change the SRC's
+#: bits.
+_ROW_BLOCK = 256
+
+
+def _overlap_rows(bank: CycleBank) -> int:
+    """R: input rows beyond its own that one output cycle reads."""
+    return max(1, -(-(bank.taps_per_phase - 1) // bank.M))
+
+
+def rows_pre_applicable(bank: CycleBank) -> bool:
+    """Does the rows form (`resample_rows_pre`) serve this bank?  Degenerate
+    tilings (tiny L or M, large overlap) and varispeed banks without a dense
+    matrix take the strided conv / banded forms instead."""
+    return (bank.dense_ok and _overlap_rows(bank) <= _MAX_R
+            and bank.L >= 8 and bank.M >= 8)
+
+
+@functools.lru_cache(maxsize=64)
+def stacked_bank_f32(bank: CycleBank) -> np.ndarray:
+    """The cycle bank restructured for the shift-after-dot rows form:
+    ``((R+1)*L, M)`` where block r holds ``G[r*M:(r+1)*M].T`` (cached)."""
+    L, M, W = bank.L, bank.M, bank.W
+    R = _overlap_rows(bank)
+    g = np.zeros(((R + 1) * M, L), np.float32)
+    g[:W] = cycle_matrix_f32(bank)
+    return np.ascontiguousarray(
+        np.concatenate([g[r * M : (r + 1) * M].T for r in range(R + 1)], axis=0))
+
+
+def rows_marshal_plan(bank: CycleBank, frames: int) -> tuple[int, int]:
+    """(n_rows, pad_front) for host-side rows marshalling of a ``frames``-long
+    signal: the host writes samples at flat offset ``pad_front`` of a
+    zero-initialised ``(n_rows, M)`` buffer (a plain memcpy — rows are
+    contiguous).  ``n_rows`` is a multiple of ``_ROW_BLOCK``; the rows past
+    the signal's cycles are zeros."""
+    q = -(-bank.out_len(frames) // bank.L)
+    return _rows_for_cycles(bank, q), bank.pad_front
+
+
+def _rows_for_cycles(bank: CycleBank, q: int) -> int:
+    """Input rows for ``q`` output cycles, rounded up to ``_ROW_BLOCK``."""
+    return -(-(q + _overlap_rows(bank)) // _ROW_BLOCK) * _ROW_BLOCK
+
+
+def resample_rows_pre(xp3: jax.Array, bank: CycleBank,
+                      precision=jax.lax.Precision.HIGHEST) -> jax.Array:
+    """SRC on an already rows-marshalled input: ``xp3`` (..., n_rows, M) ->
+    ``(..., n_rows - R, L)``.
+
+    One plain GEMM against the stacked bank plus R fused row-shifted adds —
+    ``out[q] = sum_r (xp3 @ G_r)[q + r]`` — because the cycle shift commutes
+    with the matmul.  No strided conv and no im2col.
+    """
+    L, M = bank.L, bank.M
+    R = _overlap_rows(bank)
+    if xp3.shape[-1] != M:
+        raise ValueError(f"rows width {xp3.shape[-1]} != M {M}")
+    lead, n_rows = xp3.shape[:-2], xp3.shape[-2]
+    n_out = n_rows - R
+    if n_out <= 0:
+        raise ValueError(f"need more than R={R} rows, got {n_rows}")
+    gs = jnp.asarray(stacked_bank_f32(bank))          # ((R+1)*L, M)
+    pad = -n_rows % _ROW_BLOCK         # none for marshalled inputs
+    if pad:
+        xp3 = jnp.pad(xp3, [(0, 0)] * len(lead) + [(0, pad), (0, 0)])
+    P = jnp.einsum("...qm,lm->...ql", xp3, gs, precision=precision)
+    y = P[..., :n_out, :L]
+    for r in range(1, R + 1):
+        y = y + P[..., r : r + n_out, r * L : (r + 1) * L]
+    return y
+
+
+def resample_rows(x: jax.Array, bank: CycleBank,
+                  out_len: int | None = None) -> tuple[jax.Array, int]:
+    """Resample a flat ``(..., T)`` signal into cycle rows: returns
+    ``(y (..., Q, L), out_len)`` where output sample ``t`` lives at
+    ``y[..., t // L, t % L]`` and ``Q * L >= out_len``.
+
+    Banks the rows form serves are zero-padded to ``n_rows * M`` samples
+    (``n_rows >= Q + R``, whole ``_ROW_BLOCK``s), reshaped (row-major, a
+    bitcast) to ``(n_rows, M)`` rows and evaluated by `resample_rows_pre`;
+    the rest run the strided conv (or the banded form) and are padded to
+    whole rows."""
+    L, M = bank.L, bank.M
+    T = x.shape[-1]
+    if out_len is None:
+        out_len = bank.out_len(T)
+    lead = x.shape[:-1]
+    if T == 0 or out_len == 0:
+        return jnp.zeros((*lead, 0, L), dtype=x.dtype), out_len
+    Q = -(-out_len // L)
+    if not rows_pre_applicable(bank):
+        y = resample(x, bank, out_len=out_len)
+        y = jnp.pad(y, [(0, 0)] * (y.ndim - 1) + [(0, Q * L - out_len)])
+        return y.reshape(*lead, Q, L), out_len
+    total = _rows_for_cycles(bank, Q) * M
+    pf = bank.pad_front
+    xp = jnp.pad(x, [(0, 0)] * len(lead) + [(pf, max(0, total - pf - T))])
+    xp3 = xp[..., :total].reshape(*lead, total // M, M)
+    return resample_rows_pre(xp3, bank)[..., :Q, :], out_len
+
+
+def resample_auto(x: jax.Array, bank: CycleBank,
+                  out_len: int | None = None) -> jax.Array:
+    """`resample` with the per-bank choice of form: the rows GEMM
+    (`resample_rows`) where `rows_pre_applicable`, the strided conv (or the
+    banded form for varispeed banks) otherwise.  Returns ``(..., out_len)``."""
+    if not rows_pre_applicable(bank):
+        return resample(x, bank, out_len=out_len)
+    y, out_len = resample_rows(x, bank, out_len=out_len)
+    return y.reshape(*x.shape[:-1], -1)[..., :out_len]
 
 
 @functools.partial(jax.jit, static_argnames=("rate_in", "rate_out", "quality", "kind", "out_len"))
@@ -384,9 +497,7 @@ def resample_rates(
     kind: str = "sinc",
     out_len: int | None = None,
 ) -> jax.Array:
-    """Jitted convenience wrapper: design (host, cached) + resample (device),
-    dispatched to the fastest applicable path (Pallas kernel / XLA conv)."""
-    from .pallas_src import resample_auto  # local import: avoids a cycle
-
+    """Jitted convenience wrapper: design (host, cached) + resample (device)
+    through `resample_auto`'s per-bank choice of form."""
     bank = design_cycle_bank(rate_in, rate_out, quality=quality, kind=kind)
     return resample_auto(x, bank, out_len=out_len)

@@ -1,6 +1,6 @@
 """Latency trimming, padding, and reverb-tail (noise-floor) termination.
 
-TPU-native forms of the reference's capture post-processing:
+On-device forms of the reference's capture post-processing:
 
 - ``trim_latency`` — skip the measured round-trip delay at the head of a
   capture, then take exactly the source length
@@ -137,12 +137,12 @@ def detect_tail_end(
         stream = jnp.max(jnp.abs(x), axis=1)
     else:
         raise ValueError(f"mode must be 'peak' or 'rms', got {mode!r}")
-    # Two-level windowing instead of lax.reduce_window: a 100 ms window at 48 k
-    # is 4800 lanes of scoped VMEM per output in XLA's reduce-window lowering,
-    # which overflows the 16 MB budget on real TPUs.  Reduce per hop-chunk
+    # Two-level windowing instead of lax.reduce_window: reduce per hop-chunk
     # first (a reshape + small reduction), then combine ceil(win/hop) adjacent
-    # chunk results with shifted maxima/sums — identical hop-aligned windows,
-    # tiny VMEM footprint, and MXU/VPU-friendly shapes.
+    # chunk results with shifted maxima/sums — identical hop-aligned windows
+    # and a small working set.  Chosen for an accelerator's scratch-memory
+    # budget; not yet re-measured against reduce_window on the GPU
+    # (ROADMAP.md).
     factor = -(-win // hop)               # chunks per window
     win = factor * hop                    # effective hop-aligned window: a
     # window_ms not a multiple of hop_ms rounds UP to whole chunks, and

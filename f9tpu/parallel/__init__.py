@@ -1,5 +1,5 @@
 from .mesh import (  # noqa: F401
-    Mesh, NamedSharding, P, files_sharding, make_mesh, make_multislice_mesh,
+    Mesh, NamedSharding, P, files_sharding, make_mesh,
 )
 from .sharding import (  # noqa: F401
     channels_shardable,

@@ -1,10 +1,10 @@
 """Device mesh construction for the batch-resampling workload.
 
 The reference is a single-process, single-device app (SURVEY.md section 2.4);
-scale-out is a new, first-class TPU subsystem.  Axis convention:
+scale-out is a new, first-class subsystem.  Axis convention:
 
-- ``files``   — data parallelism: independent files across chips (the dominant
-                mode; zero cross-chip traffic, rides ICI trivially)
+- ``files``   — data parallelism: independent files across devices (the
+                dominant mode; zero cross-device traffic)
 - ``frames``  — sequence parallelism: overlap-save chunking of one long file's
                 frames axis with halo exchange via ppermute
                 (`f9tpu.parallel.sharding.resample_frames_sharded`)
@@ -19,8 +19,7 @@ import numpy as np
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-__all__ = ["make_mesh", "make_multislice_mesh", "files_sharding", "P", "Mesh",
-           "NamedSharding"]
+__all__ = ["make_mesh", "files_sharding", "P", "Mesh", "NamedSharding"]
 
 
 def make_mesh(
@@ -43,47 +42,6 @@ def make_mesh(
             f"mesh {num_files_shards}x{num_frames_shards}x{num_channel_shards}"
             f" != {n} devices")
     grid = devices.reshape(num_files_shards, num_frames_shards, num_channel_shards)
-    return Mesh(grid, axis_names=("files", "frames", "channels"))
-
-
-def make_multislice_mesh(
-    num_frames_shards: int = 1,
-    num_channel_shards: int = 1,
-    devices=None,
-    slice_ids=None,
-) -> Mesh:
-    """Multi-slice (DCN-aware) mesh: the ``frames`` and ``channels`` axes —
-    the only axes whose collectives carry real payload (``ppermute`` halos,
-    ``psum``/``pmax`` metric reductions) — are pinned *within* a TPU slice so
-    they ride ICI; the ``files`` axis (pure data parallelism over independent
-    files, zero cross-chip traffic) is the only one allowed to span slices
-    over DCN.  This is the SURVEY section 2.4 communication design: DCN only
-    for trivially-parallel batch splitting.
-
-    ``slice_ids`` overrides each device's ``slice_index`` (for testing the
-    layout on backends without slices).  Raises if a frames x channels group
-    would have to straddle a slice boundary.
-    """
-    devices = list(devices if devices is not None else jax.devices())
-    if slice_ids is None:
-        slice_ids = [getattr(d, "slice_index", None) or 0 for d in devices]
-    if len(slice_ids) != len(devices):
-        raise ValueError("slice_ids must match devices")
-    groups: dict[int, list] = {}
-    for d, s in zip(devices, slice_ids):
-        groups.setdefault(s, []).append(d)
-    inner = num_frames_shards * num_channel_shards
-    chunks: list[list] = []
-    for sid in sorted(groups):
-        g = groups[sid]
-        if len(g) % inner:
-            raise ValueError(
-                f"slice {sid} has {len(g)} devices, not a multiple of the "
-                f"intra-slice frames*channels block ({inner}); halo/metric "
-                f"collectives must not cross DCN")
-        chunks.extend(g[i : i + inner] for i in range(0, len(g), inner))
-    grid = np.asarray(chunks, dtype=object).reshape(
-        len(chunks), num_frames_shards, num_channel_shards)
     return Mesh(grid, axis_names=("files", "frames", "channels"))
 
 

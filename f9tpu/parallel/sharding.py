@@ -2,7 +2,7 @@
 overlap-save sequence parallelism with ICI halo exchange.
 
 The reference's concurrency is a single RT audio thread against a message
-thread (SURVEY.md section 2.4); its TPU replacements:
+thread (SURVEY.md section 2.4); its multi-device replacements:
 
 - **files axis (DP)**: a batch ``(files, channels, frames)`` sharded over
   chips; the fused graph (`f9tpu.pipeline.graph`) is pure data parallel —

@@ -1,6 +1,6 @@
 """The fused per-batch device graph: decode buffers in, PCM codes + metrics out.
 
-This is the TPU-native equivalent of the reference's per-file hot path
+This is the on-device equivalent of the reference's per-file hot path
 (AudioProcessingService.swift:339-536: play -> capture -> wait -> trim ->
 write), collapsed into one jitted XLA graph over a fixed-shape batch
 ``(files, channels, frames)``:
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from ..config import ProcessingConfig, recording_length
 from ..models.filters import design_cycle_bank
 from ..ops import analysis, dither
-from ..ops.pallas_src import resample_auto
+from ..ops.resample import resample_auto
 from ..ops.trim import detect_tail_end, mask_beyond, trim_latency
 
 __all__ = ["ProcessResult", "build_process_fn", "process_batch"]
@@ -136,7 +136,7 @@ def _process_impl(
     if chain is not None:
         # The insert loop: the user's processor stack runs in-graph on the
         # resampled signal, adding its real group delay (trimmed below) and
-        # ring-out (landing in the padded capture head-room) — the TPU form
+        # ring-out (landing in the padded capture head-room) — the device form
         # of play -> external chain -> capture
         # (AudioProcessingService.swift:339-536).
         y = chain.apply(y, rate_out)
@@ -185,7 +185,7 @@ def _process_impl(
         terminated = jnp.ones((files,), bool)
         out_frames = out_valid
 
-    # ---- single-materialisation discipline (docs/PERF.md round 2): `y` is
+    # ---- single-materialisation discipline: `y` is
     # the last full-size array written (barrier: stops XLA re-running the SRC
     # matmul per consumer); the DC-removed/gained signal `z` is a virtual
     # fused producer recomputed by each consumer pass ----
@@ -298,15 +298,14 @@ def _process_impl_rows(
 
     ``x`` may arrive 4-D ``(files, C, n_rows, M)`` — HOST-marshalled rows
     (see ``rows_marshal_plan``): the host memcpy replaces the device-side
-    flat->rows retiling that costs 3-4 ms/batch (docs/PERF.md round 2), and
-    the SRC becomes one stacked-bank matmul + R fused row-shifted adds
-    (``resample_rows_pre``).  Contract: marshalled buffers are zero outside
+    flat->rows retiling, and the SRC becomes one stacked-bank matmul + R
+    fused row-shifted adds (``resample_rows_pre``).  Contract: marshalled buffers are zero outside
     each file's valid samples (fresh zero-filled staging per flush).
     """
     (quality, kind, bits, do_dither, remove_dc, gain_db, _trim_enabled,
      _reverb_mode, _margin_pct, _tail_mode, tail_window_ms, _tail_hop_ms,
      _tail_consecutive, _pad_frames, routing, out_channels) = cfg_key
-    from ..ops.pallas_src import resample_rows, resample_rows_pre
+    from ..ops.resample import resample_rows, resample_rows_pre
 
     bank = design_cycle_bank(rate_in, rate_out, quality=quality, kind=kind)
     files = x.shape[0]
@@ -322,9 +321,9 @@ def _process_impl_rows(
             x = jnp.where(silent4, 0.0, x)
         if bank.G is None:
             # varispeed bank: host-marshalled overlapping cycle rows
-            # (banded_rows_plan) through the banded MXU evaluation — same
-            # rows-tiling contract downstream, ~4.7x less device time than
-            # the flat banded form (docs/PERF.md round 3)
+            # (banded_rows_plan) through the banded evaluation — same
+            # rows-tiling contract downstream, no device-side cycle
+            # retiling
             from ..ops.resample import resample_banded_rows_pre
 
             y = resample_banded_rows_pre(x, bank)   # (files, C, Q, L)
@@ -342,13 +341,13 @@ def _process_impl_rows(
     pos = (rowi * L + coli)[None, None]                   # (1,1,n,L)
     valid = pos < out_valid.reshape(files, 1, 1, 1)
 
-    # ---- HBM-traffic discipline (docs/PERF.md round 2): materialise the SRC
+    # ---- HBM-traffic discipline: materialise the SRC
     # output exactly once (mask fused into the matmul epilogue; the barrier
     # stops XLA from *duplicating the convolution* into each consumer
     # fusion), then every later stage is a FUSED consumer of it.  The
     # DC-removed/gained signal `z` stays virtual — recomputed by each pass
-    # instead of written back (an explicit z write+read costs ~0.7 ms/batch
-    # at bench scale, measured) ----
+    # instead of written back (an explicit z write+read costs one more full
+    # HBM round trip) ----
     ym = jnp.where(valid, y, 0.0)
     if remove_dc:
         # computed BEFORE the barrier so XLA multi-output-fuses the sum into
@@ -382,7 +381,7 @@ def _process_impl_rows(
     if do_dither:
         # counter-hash TPDF noise keyed by (file seed, channel, output frame)
         # — byte-identical across runs, batch groupings, chunkings, and
-        # backends, at ~1/10 the VPU cost of the threefry draw; `pos` is the
+        # backends, at a fraction of the cost of the threefry draw; `pos` is the
         # logical output frame index in the rows tiling, so this matches the
         # flat and streaming paths bit-for-bit (dither.tpdf_noise)
         cs = dither.channel_seeds(dither.noise_seeds(key, files), C)
@@ -395,13 +394,9 @@ def _process_impl_rows(
         codes = jnp.where(silent, 0, codes)
     terminated = jnp.ones((files,), bool)
     if packed_out:
-        # Device-side payload packing for the raw wire (round 5): packing
-        # INSIDE the rows tiling would grow a (..., C, 3) uint8 tail that
-        # HBM pads to 128 lanes (~42x D2H inflation) — but a flat reshape
-        # first gives the same wide byte vector the flat path downloads.
-        # The reshape relayout costs ~3-4 ms/batch on device; the payload
-        # is 3/4 (24-bit) or 1/2 (16-bit) of the int32 bytes, measured
-        # 0.82-0.91x wall on the link-bound D2H (docs/PERF.md round 5).
+        # Device-side payload packing for the raw wire: a flat reshape
+        # first gives the same wide byte vector the flat path downloads,
+        # 3/4 (24-bit) or 1/2 (16-bit) of the int32 bytes.
         from ..ops.devcodec import pack_interleaved
 
         flat = codes.reshape(codes.shape[0], codes.shape[1], -1)
@@ -555,10 +550,9 @@ def process_batch_raw(
     (files, out_total * out_channels * cfg.bits//8); slice each file to
     ``out_frames[i] * out_channels * cfg.bits//8`` and write after a WAV
     header.  Requires ``cfg.bits`` in (16, 24) — the on-device packer's
-    wire formats (24-bit was round 3; the 16-bit narrow wire is round 4,
-    docs/PERF.md "Headroom" item 5: a ``--bits 16`` batch used to upload
-    float32 and download int32, 4 B/sample each way on the link-bound path;
-    JUCE's writer wires 16-bit natively, Source/MainComponent.cpp:784-801).
+    wire formats (the 16-bit narrow wire moves 2 B/sample each way instead
+    of float32/int32's 4; JUCE's writer wires 16-bit natively,
+    Source/MainComponent.cpp:784-801).
     """
     if cfg.bits not in (16, 24):
         raise ValueError("packed output path requires bits in (16, 24)")

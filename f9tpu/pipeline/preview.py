@@ -122,7 +122,7 @@ def render_playlist(
 ) -> tuple[np.ndarray, np.ndarray | None, list[PlaylistItem]]:
     """Render ``files`` into one gapless (channels, frames) array.
 
-    Files not matching ``rate`` are resampled on device first (the TPU twist:
+    Files not matching ``rate`` are resampled on device first (the device twist:
     preview of a mixed-rate library is exact, where the reference requires
     pre-matched rates).  ``loops`` renders the playlist wrap-around that many
     times with the silence gap between passes (the reference's looping
@@ -204,10 +204,9 @@ def _iter_item_blocks(path: str, rate: int, quality: str, kind: str,
     span plus the filter halos (``bank.pad_front`` left, ``W - M - pad_front``
     right, zero-padded at the item's ends) and run the presliced cycle conv
     — identical window math to `pipeline/stream.py`, so chunking the item
-    does not change its values on the production backend (TPU chunk-size
-    bitwise invariance, docs/PERF.md round 4 session 3b; XLA:CPU can flip
-    last-ulp ties for some ratios — the same scope note as the main
-    stream).  Rate-matched items stream straight from the reader."""
+    does not change its values (XLA:CPU can flip last-ulp ties for some
+    ratios — the same scope note as the main stream).  Rate-matched items
+    stream straight from the reader."""
     import jax.numpy as jnp
 
     from ..models.filters import design_cycle_bank
@@ -298,9 +297,8 @@ def stream_playlist(
 
     Every per-frame op (channel placement, monitor mixdown/accumulate,
     24-bit quantization) is position-local and the SRC chunking is
-    value-preserving on the production backend (TPU chunk-size bitwise
-    invariance; the usual XLA:CPU last-ulp scope note applies —
-    docs/PERF.md round 4 session 3b), so the emitted samples match
+    value-preserving (the usual XLA:CPU last-ulp scope note applies), so
+    the emitted samples match
     ``render_playlist`` + ``write_wav`` for the same inputs; loops
     re-stream instead of caching (the render form's per-file decode cache
     is exactly the memory this path exists to avoid).  The WAV output

@@ -2,7 +2,7 @@
 
 The reference's 1 kHz loop test plays a sine out, meters both directions for
 5 s, and classifies: loop detected / output-but-no-input / nothing
-(Services/HardwareLoopTestService.swift:65-219).  The TPU equivalent validates
+(Services/HardwareLoopTestService.swift:65-219).  The device equivalent validates
 the compute loop instead of a cable: generate the test tone on device, push it
 through the full SRC graph, and verify level and frequency at the other end
 (delay verification is `selftest --parity` / `measure`'s job — the impulse

@@ -208,8 +208,7 @@ def _finish_chunk(y, carry, seeds_c, pos0, gain, *, rate_out, bits,
         mask = np.zeros((codes.shape[0], 1), bool)
         mask[list(silent)] = True
         codes = jnp.where(jnp.asarray(mask), 0, codes)
-    # wire format of the D2H download (this environment is LINK-bound —
-    # docs/PERF.md round 3e): "pack24" packs the 24-bit codes into
+    # wire format of the D2H download: "pack24" packs the 24-bit codes into
     # interleaved bytes ON DEVICE (3 B/sample instead of int32's 4, the
     # streaming twin of the batch path's `device_layout="packed"`);
     # "i16" narrows 16-bit codes to int16 (2 B/sample, value-exact).
@@ -278,12 +277,11 @@ def _stream_step(xp, carry, seeds_c, pos0, gain, *, cycles, rate_in, rate_out,
 
     ``rows_form`` (varispeed banks): ``xp`` arrives HOST-MARSHALLED as
     overlapping cycle rows ``(C, cycles, w_rows)`` instead of the flat padded
-    chunk, skipping the device-side cycle retiling that costs ~4x the banded
-    resampler itself (docs/PERF.md round 3b) — the streaming twin of the
+    chunk, skipping the device-side cycle retiling — the streaming twin of the
     batch scheduler's ``device_layout="rows"`` dispatch.  Bitwise-identical
     to the flat form: both trace the one ``_banded_eval_rows``.
 
-    ``in_wire`` = (bits, big_endian) (raw H2D upload, docs/PERF.md round 3e):
+    ``in_wire`` = (bits, big_endian) (raw H2D upload):
     ``xp`` arrives as the container's interleaved integer-PCM BYTES
     (zero-padded to the chunk span on the host — zero bytes decode to zero
     samples) and the decode / mono fan-out / routing gather / DC-mean
@@ -644,13 +642,12 @@ def _stream_resample_impl(
         # carries the IDENTICAL dither noise stream (keyed by absolute
         # output frame position: chunk-size invariant — ops/dither.py).
         # Streamed output is byte-identical across chunk sizes, shardings
-        # and runs ON TPU (verified bitwise for 5/11/17/34-cycle chunks on
-        # hardware).  Scope note: XLA:CPU's conv lowering is not
-        # shape-invariant for every ratio — different chunk lengths can
-        # flip occasional float rounding ties (44.1k->32k measured ~2
-        # frames per 15k under the virtual-device test flag; the fuzz
-        # bounds it to <=1 code at <=0.1% of frames — docs/PERF.md round 4
-        # session 3).  Versus the BATCH graph the signal under the noise
+        # and runs (on the GPU: tools/hw_soak.py, chip_smoke.py phase C).
+        # Scope note: XLA:CPU's conv lowering is not shape-invariant for
+        # every ratio — different chunk lengths can flip occasional float
+        # rounding ties (44.1k->32k measured ~2 frames per 15k under the
+        # virtual-device test flag; the fuzz bounds it to <=1 code at <=0.1%
+        # of frames).  Versus the BATCH graph the signal under the noise
         # differs at SRC float-rounding level (~3 LSB at 24 bit: the two
         # paths associate the resampler dots differently by design — the
         # tested "dither contract", test_stream_features._assert_dither_contract)
@@ -726,9 +723,8 @@ def _stream_resample_impl(
             # Varispeed banks: marshal each chunk into overlapping cycle rows
             # on the host (strided window view, ~2% duplicate bytes at NTSC
             # ratios) so the device starts at the segment windows — the
-            # streaming twin of the batch scheduler's rows dispatch
-            # (docs/PERF.md round 3b: the flat form's device-side retiling
-            # costs ~4x the banded resampler itself).  Bitwise-identical
+            # streaming twin of the batch scheduler's rows dispatch.
+            # Bitwise-identical
             # output: `_banded_core` builds the exact same rows on device.
             from ..ops.resample import (_banded_plan, banded_rows_applicable,
                                         marshal_banded_rows)
@@ -760,7 +756,7 @@ def _stream_resample_impl(
                 xp = np.pad(span, ((0, 0), (pad_l, max(0, pad_r))))
                 return marshal_rows(xp) if rows_form else xp
 
-            # ---- raw H2D upload wire (docs/PERF.md round 3e): integer-PCM
+            # ---- raw H2D upload wire: integer-PCM
             # sources ship their container bytes (3 B/sample at 24 bit,
             # 2 B at 16) and decode/fan-out/route/DC-subtract ON DEVICE —
             # bitwise-identical floats (power-of-two scaling, same op order
@@ -826,8 +822,8 @@ def _stream_resample_impl(
             # ---- one-deep software pipeline: dispatch chunk k (async H2D +
             # compute under JAX's dispatch queue), THEN materialise and write
             # chunk k-1 — the host read/pad/marshal and the encode/disk write
-            # overlap the device/link work instead of serialising with it
-            # (measured 51-60x -> see docs/PERF.md round 3e).  Inputs,
+            # overlap the device/link work instead of serialising with it.
+            # Inputs,
             # positions, and the carry chain are identical to the serial
             # loop, so output bytes are unchanged (tested contracts: batch
             # parity, chunk-size invariance).  Without a tail detector the

@@ -1,31 +1,29 @@
 """Persistent XLA compilation cache, shared by every entry point (CLI,
-bench.py, __graft_entry__.py).
+bench.py, chip_smoke.py, tools/hw_soak.py).
 
-Once primed, a previously compiled graph loads in ~40 ms instead of
-recompiling — a fresh chain config can cost minutes of XLA compile on a
-contended compile service.  Default location ``~/.cache/f9tpu/xla``;
-override with ``F9TPU_COMPILE_CACHE=/path`` or disable with ``=off``.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets nothing.  Otherwise the cache lives at one fixed path inside the
+checkout, ``<repo>/.jax_cache`` (listed in ``.gitignore``): the path is part
+of the cache key, so a directory that moved would never hit.
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["enable_compile_cache"]
+__all__ = ["default_cache_dir", "enable_compile_cache"]
+
+
+def default_cache_dir() -> str:
+    """The fixed in-checkout cache directory used when the environment names
+    none."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(os.path.dirname(os.path.dirname(here)), ".jax_cache")
 
 
 def enable_compile_cache() -> None:
-    spec = os.environ.get("F9TPU_COMPILE_CACHE", "")
-    if spec.lower() in ("off", "0", "none"):
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    path = spec or os.path.expanduser("~/.cache/f9tpu/xla")
-    try:
-        import jax
+    import jax
 
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        min_secs = float(os.environ.get("F9TPU_COMPILE_CACHE_MIN_SECS", "1.0"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          min_secs)
-    except Exception:
-        pass       # the cache is an optimisation; never block the run on it
+    jax.config.update("jax_compilation_cache_dir", default_cache_dir())

@@ -1,4 +1,4 @@
-"""Insert-chain tests: the TPU-native external-processor loop.
+"""Insert-chain tests: the on-device external-processor loop.
 
 Covers the reference's flagship semantics that only exist with a real
 processor in the loop (AudioProcessingService.swift:222-264,426-465):
@@ -1151,8 +1151,7 @@ def test_fir_fold_is_position_invariant_bitwise():
     """The property the 0-ULP streaming contract rides on: evaluating the
     fold over a longer buffer that CONTAINS the same window yields bitwise
     the same interior outputs, regardless of offset or total length (the
-    backend conv lowering does not guarantee this — judge-measured up to
-    ~1.3e-5 on TPU, docs/PERF.md round 5)."""
+    backend conv lowering does not guarantee this)."""
     from f9tpu.ops.chain import _fir_fold
 
     rng = np.random.default_rng(17)
@@ -1169,13 +1168,13 @@ def test_fir_fold_is_position_invariant_bitwise():
 
 
 def test_fir_biquad_stream_judge_repro_zero_ulp():
-    """The round-4 judge's exact hardware repro, pinned: FIRInsert(64 taps)
+    """A pinned hardware repro: FIRInsert(64 taps)
     streamed at 997-frame chunks and Biquad('peaking', 1 kHz, q=2, +6 dB)
     (858-tap IR) streamed at 997- AND 4096-frame chunks must equal the
     whole-signal apply at 0 ULP, and the two chunkings must agree byte for
-    byte.  On the old direct-conv streaming path this read 107 differing
-    24-bit codes (FIR) / ~6-8k codes (biquad) ON THE REAL TPU; the fold's
-    position-invariance closes it on every backend."""
+    byte.  The old direct-conv streaming path broke this on an
+    accelerator; the fold's position-invariance closes it on every
+    backend."""
     from f9tpu.ops.chain import Biquad, FIR_FOLD_MAX
 
     rate = 48000

@@ -178,14 +178,14 @@ def test_random_streaming_config_end_to_end(tmp_path, trial):
         # different chunk lengths compile different programs whose
         # contraction order can differ at the last ulp, flipping occasional
         # rounding ties (44.1k->32k measured ~2 frames per 15k under the
-        # 8-virtual-device flag; the real TPU is bitwise invariant for the
-        # same shapes — docs/PERF.md round 4 session 3).  Bound the backend
-        # artifact TIGHTLY so real state bugs (chunk-relative dither or
-        # envelopes: +-1 code at ~every frame; missing chain state: large
-        # errors) still fail loudly.
+        # 8-virtual-device flag).  The allowance is for the CPU backend
+        # only; on the GPU (tools/hw_soak.py) the bytes must be identical.
+        # Bound the backend artifact TIGHTLY so real state bugs
+        # (chunk-relative dither or envelopes: +-1 code at ~every frame;
+        # missing chain state: large errors) still fail loudly.
         import jax
 
-        assert jax.default_backend() != "tpu", (trial, kw, lat)
+        assert jax.default_backend() == "cpu", (trial, kw, lat)
         from f9tpu.io import codec as _codec
 
         ya, _ = _codec.read_audio(o1)

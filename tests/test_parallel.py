@@ -395,33 +395,6 @@ def test_stream_sharded_with_dc_and_dither(tmp_path):
     assert 20 * np.log10(err / np.sqrt(np.mean(ref**2))) <= -100
 
 
-def test_multislice_mesh_keeps_collectives_on_ici():
-    """frames/channels blocks never straddle a (simulated) slice boundary;
-    only the zero-traffic files axis crosses DCN (SURVEY section 2.4)."""
-    from f9tpu.parallel import make_multislice_mesh, resample_frames_sharded
-
-    devs = jax.devices()
-    slice_ids = [0, 0, 0, 0, 1, 1, 1, 1]       # two 4-chip slices
-    mesh = make_multislice_mesh(num_frames_shards=2, devices=devs,
-                                slice_ids=slice_ids)
-    assert mesh.shape == {"files": 4, "frames": 2, "channels": 1}
-    sid = {d.id: s for d, s in zip(devs, slice_ids)}
-    grid = np.asarray(mesh.devices)
-    for f in range(grid.shape[0]):
-        block = grid[f].ravel()                 # one frames x channels block
-        assert len({sid[d.id] for d in block}) == 1   # intra-slice
-    # a block that can't fit in a slice is rejected
-    with pytest.raises(ValueError, match="DCN"):
-        make_multislice_mesh(num_frames_shards=3, devices=devs,
-                             slice_ids=slice_ids)
-    # and the mesh actually executes a sharded op
-    bank = design_cycle_bank(44100, 48000, quality="low")
-    T = 2 * bank.M * 16
-    y = resample_frames_sharded(jnp.zeros(T, jnp.float32), 44100, 48000,
-                                mesh, quality="low")
-    assert np.asarray(y).shape == (T * bank.L // bank.M,)
-
-
 def test_channels_sharded_dither_decorrelated_and_reproducible():
     """Channel shards must not emit byte-identical dither noise (every shard
     holds the same per-file seed vector), and reruns must reproduce exactly."""

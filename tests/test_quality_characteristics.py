@@ -115,7 +115,7 @@ def test_rows_graph_hbm_traffic_budget():
     chip is noisy): the rows fused graph's total bytes-accessed must stay
     within budget for a fixed shape.  Reintroducing a device-side flat
     reshape, a duplicated SRC conv (lost optimization_barrier), or an
-    explicit z materialisation (docs/PERF.md round 2b) shows up here as a
+    explicit z materialisation shows up here as a
     2x+ jump, with zero timing noise.  Measured baseline on this shape:
     ~96 MB (CPU backend cost model); budget 130 MB."""
     import functools
@@ -125,7 +125,7 @@ def test_rows_graph_hbm_traffic_budget():
 
     from f9tpu.config import ProcessingConfig
     from f9tpu.models.filters import design_cycle_bank
-    from f9tpu.ops.pallas_src import rows_marshal_plan
+    from f9tpu.ops.resample import rows_marshal_plan
     from f9tpu.pipeline.graph import _cfg_key, _process_impl_rows
 
     cfg = ProcessingConfig(output_dir="/tmp/x", target_rate=48000,
@@ -148,11 +148,11 @@ def test_rows_graph_hbm_traffic_budget():
 def test_banded_rows_hbm_traffic_budget():
     """Banded (varispeed) twin of the rows tripwire: ``_banded_eval_rows``
     must keep consuming lane-aligned slices of the marshalled rows directly
-    (one dot per segment, docs/PERF.md round 3c).  Reintroducing the
+    (one dot per segment).  Reintroducing the
     stacked (Q, S, w) segment-window tensor costs a full extra HBM
     write+read pass — measured 103 MB on this shape vs 53 MB for the
-    per-segment form (CPU cost model; 2253 vs 893 MB on the TPU bench
-    shape).  Budget 70 MB sits between the two."""
+    per-segment form (CPU cost model).  Budget 70 MB sits between the
+    two."""
     import jax
     import jax.numpy as jnp
 
@@ -241,7 +241,7 @@ class TestMinimumPhase:
 
 def test_varispeed_banded_characteristics():
     """Varispeed (NTSC 44.1k->44.056k, L/M = 11014/11025) has no dense cycle
-    matrix — it runs the banded MXU path.  Pin its design characteristics
+    matrix — it runs the banded path.  Pin its design characteristics
     independently of oracle parity (QUALITY.md measures 0.005 dB ripple and
     136.6 dB alias rejection at quality=high)."""
     from f9tpu.models.filters import design_cycle_bank

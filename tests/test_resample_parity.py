@@ -1,4 +1,4 @@
-"""Parity of the TPU resample op vs the float64 oracle, plus signal-quality
+"""Parity of the device resample forms vs the float64 oracle, plus signal-quality
 checks (alignment, DC gain, tone SNR) across the reference's supported rate
 family (Source/SettingsComponent.cpp:77-85: 44.1/48/88.2/96/176.4/192 kHz)."""
 
@@ -178,7 +178,7 @@ def test_resample_rows_pre_matches_conv_paths():
     """The host-marshalled rows form (stacked-bank matmul + shifted adds)
     must match the conv path for every quality / direction it serves."""
     import jax.numpy as jnp
-    from f9tpu.ops.pallas_src import (
+    from f9tpu.ops.resample import (
         resample_rows_pre,
         rows_marshal_plan,
         rows_pre_applicable,
@@ -210,7 +210,7 @@ def test_process_batch_rows_marshalled_matches_flat():
     3-D input (same graph, same codes) including routing and mono fan-out."""
     import jax.numpy as jnp
     from f9tpu.config import ProcessingConfig
-    from f9tpu.ops.pallas_src import rows_marshal_plan
+    from f9tpu.ops.resample import rows_marshal_plan
     from f9tpu.pipeline.graph import process_batch
 
     rng = np.random.default_rng(3)
@@ -253,3 +253,83 @@ def test_process_batch_rows_marshalled_matches_flat():
     with pytest.raises(ValueError, match="rows fast path"):
         process_batch(jnp.asarray(x4), valid, cfg, 44100, jnp.asarray(seeds),
                       rows_layout=True)
+
+
+# Banks whose flat SRC ran through the removed Pallas kernel: the flat rows
+# form (pad -> row-major reshape -> `resample_rows_pre` -> flat reshape) now
+# serves them on every backend.
+FLAT_ROWS_BANKS = [
+    (44100, 48000, "high", "sinc"),
+    (96000, 44100, "high", "sinc"),
+    (176400, 48000, "high", "sinc"),
+    (44100, 48000, "ultra", "sinc"),
+    (44100, 48000, "high", "minphase"),
+]
+
+
+@pytest.mark.parametrize("rate_in,rate_out,quality,kind", FLAT_ROWS_BANKS)
+def test_flat_rows_form_matches_conv_and_oracle(rate_in, rate_out, quality,
+                                                kind):
+    from f9tpu.ops.resample import (resample, resample_auto,
+                                    rows_pre_applicable)
+
+    bank = design_cycle_bank(rate_in, rate_out, quality=quality, kind=kind)
+    assert rows_pre_applicable(bank)
+    T = rate_in // 8 + 7                      # not a multiple of M
+    x = make_signal(T, rate_in, seed=11)[None].repeat(2, axis=0)
+    got = np.asarray(resample_auto(x, bank))
+    conv = np.asarray(resample(x, bank))
+    assert got.shape == conv.shape == (2, bank.out_len(T))
+    assert np.abs(got - conv).max() < 2e-6
+    ref = resample_oracle(x[0], rate_in, rate_out, quality=quality, kind=kind)
+    assert rms_db(got[0] - ref, ref) <= -120.0
+
+
+@pytest.mark.parametrize("out_len", [None, 1, 999, 5000])
+def test_resample_rows_shapes_and_padding(out_len):
+    """Cycle rows hold exactly ceil(out_len / L) rows; the flat reading of
+    them equals the conv for any requested out_len, short or long."""
+    from f9tpu.ops.resample import resample, resample_rows
+
+    bank = design_cycle_bank(44100, 48000, quality="low")
+    x = make_signal(3001, 44100, seed=4).reshape(1, 1, -1)
+    y, n = resample_rows(x, bank, out_len=out_len)
+    want = bank.out_len(3001) if out_len is None else out_len
+    assert n == want
+    assert y.shape == (1, 1, -(-want // bank.L), bank.L)
+    flat = np.asarray(y).reshape(1, 1, -1)[..., :want]
+    ref = np.asarray(resample(x, bank, out_len=want))
+    assert np.abs(flat - ref).max() < 2e-6
+
+
+def test_resample_rows_empty_input():
+    from f9tpu.ops.resample import resample_rows
+
+    bank = design_cycle_bank(44100, 48000, quality="low")
+    y, n = resample_rows(np.zeros((2, 0), np.float32), bank)
+    assert n == 0 and y.shape == (2, 0, bank.L)
+
+
+@pytest.mark.parametrize("rate_in,rate_out,form", [
+    (44100, 48000, "rows"),
+    (96000, 44100, "rows"),
+    (44100, 88200, "conv"),       # M = 1: below the rows form's minimum M
+    (44100, 44056, "banded"),     # varispeed: no dense cycle matrix
+])
+def test_resample_rates_choice_of_form(rate_in, rate_out, form):
+    """`resample_rates` (calibration, R128 metering, true peak, selftest)
+    takes the rows GEMM where it applies and the conv where it does not."""
+    import jax
+
+    from f9tpu.ops.resample import rows_pre_applicable
+
+    bank = design_cycle_bank(rate_in, rate_out, quality="low")
+    assert rows_pre_applicable(bank) == (form == "rows")
+    x = make_signal(4410, rate_in)
+    jaxpr = str(jax.make_jaxpr(
+        lambda v: resample_rates(v, rate_in, rate_out, quality="low"))(x))
+    assert ("conv_general_dilated" in jaxpr) == (form == "conv")
+    assert ("dot_general" in jaxpr) == (form != "conv")
+    y = np.asarray(resample_rates(x, rate_in, rate_out, quality="low"))
+    ref = resample_oracle(x, rate_in, rate_out, quality="low")
+    assert rms_db(y - ref, ref) <= -120.0

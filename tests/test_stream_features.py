@@ -412,7 +412,7 @@ class TestShardedStreamFeatures:
 
 class TestStreamVarispeedRows:
     """Varispeed streams ride the host-marshalled cycle-rows form
-    (docs/PERF.md round 3b/3c) — the streaming twin of the batch
+    — the streaming twin of the batch
     scheduler's rows dispatch.  The rows and flat forms share
     `_banded_eval_rows`, so these are BYTE-identity contracts."""
 

@@ -138,7 +138,7 @@ def test_all_rate_pairs_rows_pre_vs_oracle():
     `resample_rows_pre`) across every studio rate pair it serves."""
     import jax.numpy as jnp
 
-    from f9tpu.ops.pallas_src import (
+    from f9tpu.ops.resample import (
         resample_rows_pre,
         rows_marshal_plan,
         rows_pre_applicable,

@@ -3,8 +3,8 @@
 Near-unity rational ratios reduce to huge L/M (44100->44056 = 11014/11025),
 whose dense (W, L) cycle matrix would be ~0.5 GB.  `design_cycle_bank` skips
 the dense build above `DENSE_MAX_ELEMS` and execution routes through the
-banded MXU path (`resample_banded`: per-cycle staircase band split into
-128-output segments of small dense matrices — ~49,000x realtime measured),
+banded path (`resample_banded`: per-cycle staircase band split into
+128-output segments of small dense matrices),
 with the phase-table gather path (`resample_gather`) kept as an independent
 cross-check of the index contract.  Same filter design, same zero-delay
 contract, so the float64 oracle remains the parity reference.

@@ -693,8 +693,7 @@ def test_native_front_half_bitwise_parity(tmp_path):
 @needs_libvorbis
 def test_native_decode_speedup(tmp_path):
     """The native path must actually engage (handle built) and carry the
-    conformance matrix — sanity-pinned here; speed itself is recorded in
-    docs/PERF.md (4-7x over the Python oracle)."""
+    conformance matrix — sanity-pinned here."""
     from f9tpu import native
     from f9tpu.io.ogg import packets_from_pages, read_pages
     from f9tpu.io.vorbis import VorbisStreamDecoder, _find_vorbis_stream

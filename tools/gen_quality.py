@@ -34,7 +34,7 @@ PAIRS = [
     (44100, 192000), (192000, 44100),
     (176400, 48000), (48000, 176400),
     (88200, 96000), (96000, 88200),
-    # varispeed / NTSC pull-down: exercises the banded MXU path (no dense
+    # varispeed / NTSC pull-down: exercises the banded path (no dense
     # cycle matrix; ops/resample.py _banded_eval_rows)
     (44100, 44056), (44056, 44100),
 ]
@@ -285,7 +285,7 @@ def main() -> None:
         "  not the filter design; 24-bit output quantization adds its own "
         "-146 dBFS",
         "  TPDF dither floor downstream (`ops/dither.py`).",
-        "- The varispeed pairs (44.1k↔44.056k) run the banded MXU path (no "
+        "- The varispeed pairs (44.1k↔44.056k) run the banded path (no "
         "dense cycle",
         "  matrix); their rows certify that path against the same metrics.  "
         "Image",
